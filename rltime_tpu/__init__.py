@@ -1,4 +1,4 @@
-"""rltime_tpu — a TPU-native actor-learner RL framework.
+"""rltime_tpu — an accelerator-resident actor-learner RL framework.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference framework `opherlieber/rltime` (see SURVEY.md; the reference

@@ -27,14 +27,14 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from rltime_tpu.models.policy import (
     ModelConfig, initial_rnn_state, make_model, q_values,
 )
+from rltime_tpu.utils.pytree import PyTreeNode
 
 
-class ActorDeviceState(struct.PyTreeNode):
+class ActorDeviceState(PyTreeNode):
     """On-device acting state for E lockstep env lanes."""
     frames: jnp.ndarray      # (E, F, ...) rolling frame stack (F>=1)
     rnn: tuple               # LSTM carry ((c, h) or ())

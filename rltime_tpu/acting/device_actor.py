@@ -7,7 +7,7 @@ eps-greedy -> env.step -> record}, emitting the (E, L, ...) transition
 chunk directly in device memory where the replay insert consumes it.
 The only host traffic per chunk is the epsilon vector (E,) down and
 the episode-stat scalars back — acting throughput becomes
-compute-bound (SURVEY.md §0 item 1 at its TPU-native extreme).
+compute-bound (SURVEY.md §0 item 1 at its device-resident extreme).
 
 Episode bookkeeping stays on device too: completed returns land in a
 fixed-size ring via a cumsum-offset scatter (out-of-range indices
@@ -20,16 +20,16 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from rltime_tpu.models.policy import (
     ModelConfig, initial_rnn_state, make_model, q_values,
 )
+from rltime_tpu.utils.pytree import PyTreeNode
 
 STATS_RING = 256  # last-K completed episode returns kept on device
 
 
-class DeviceActorState(struct.PyTreeNode):
+class DeviceActorState(PyTreeNode):
     env_state: Any           # obs derives from it via env.observe()
     done_prev: jnp.ndarray   # (E,) bool
     rnn: tuple

@@ -2,7 +2,7 @@
 
 The reference's "actor pool" is N actor subprocesses streaming
 transitions to the learner through queues, with periodic weight
-refresh (SURVEY.md §2 "Actor pool / async acting"). TPU-native
+refresh (SURVEY.md §2 "Actor pool / async acting"). Device-side
 equivalent: ONE background thread drives the vectorized env engine
 (numpy/C++ lanes release the GIL; the jitted act step dispatches
 async), handing fixed-shape chunks to the learner thread through a

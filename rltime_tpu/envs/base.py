@@ -1,6 +1,6 @@
 """VecEnv: the host-plane lockstep environment protocol.
 
-TPU-native replacement for the reference's subprocess vec-env
+Vectorized replacement for the reference's subprocess vec-env
 (SURVEY.md §1 L6, §2 "Env vectorization"). Key differences:
 
   * the protocol is BATCH-ONLY and fixed-shape: `step` takes (E,)

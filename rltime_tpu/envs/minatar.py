@@ -3,7 +3,7 @@
 The reference validates its CNN/PER/distributional stack on ALE Atari
 (SURVEY.md §0 items 1, 4); ALE is a host C++ emulator and unavailable
 in this sandbox. These envs provide the same *validation capability*
-the TPU-native way: miniaturized Atari games (the published MinAtar
+the device-resident way: miniaturized Atari games (the published MinAtar
 suite dynamics — Young & Tian 2019, arXiv:1903.03176) re-implemented
 as pure vectorized jnp, so the image-observation pipeline (CNN torso,
 frame window gather, PER, IQN/R2D2) trains end-to-end with ZERO host

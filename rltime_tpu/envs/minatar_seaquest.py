@@ -5,7 +5,7 @@ arXiv:1903.03176), completing the family next to Breakout
 (envs/minatar_games.py). Same design rationale as those modules: pure
 vectorized jnp dynamics so the full image-obs pipeline (CNN torso,
 replay, PER, IQN/R2D2) trains with ZERO host involvement — the
-TPU-native stand-in for the reference's ALE validation workloads
+Device-resident stand-in for the reference's ALE validation workloads
 (SURVEY.md §0 items 1, 4).
 
 Game: the player submarine (6 actions: noop/left/up/right/down/fire)

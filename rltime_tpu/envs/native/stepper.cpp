@@ -1,7 +1,7 @@
 // Native batched environment stepper (SURVEY.md §2a).
 //
 // The reference's env throughput comes from Python subprocess workers
-// around per-env emulators; the TPU-native build replaces that with an
+// around per-env emulators; this build replaces that with an
 // in-process C++ lane pool stepped in lockstep: one call advances all
 // E lanes, writing fixed-shape output buffers the caller hands straight
 // to jax.device_put. A worker thread pool shards lanes across cores

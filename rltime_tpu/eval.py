@@ -55,8 +55,9 @@ def evaluate(result_dir: str, episodes: int = 10, eps: float = 1e-3,
         b = ckpt_lib.best_step(result_dir)
         step = b["step"] if b else None
     restored = ckpt_lib.restore(result_dir, step)
+    # without an example, restore returns plain nested dicts, which
+    # is the model's param tree as-is
     params = restored["train_state"]["params"]
-    # orbax returns plain dicts; flax accepts dict params directly.
 
     frames = [] if record_path else None
     steps = 0
@@ -114,9 +115,11 @@ def main(argv=None):
                              "(train.track_best) instead of the last")
     parser.add_argument("--cpu", action="store_true")
     args = parser.parse_args(argv)
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     report = evaluate(args.result_dir, args.episodes, args.eps,
                       record_path=args.record, best=args.best)
     print(json.dumps(report))

@@ -1,6 +1,6 @@
 """Device-resident replay: time-major per-env rings + sum-tree PER.
 
-TPU-native re-design of the reference's history layer (SURVEY.md §1 L4,
+Device-resident re-design of the reference's history layer (SURVEY.md §1 L4,
 §2 "Uniform replay"/"Prioritized replay"/"Online/n-step history").
 Differences from the reference, by design:
 
@@ -32,11 +32,11 @@ from typing import Any, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.experimental.layout import Layout as _Layout
 from jax.experimental.layout import with_layout_constraint as _with_layout
 
 from rltime_tpu.ops import dense_tree, sum_tree
+from rltime_tpu.utils.pytree import PyTreeNode
 
 
 def _tree_ops(cfg: "ReplayConfig"):
@@ -48,13 +48,13 @@ def _pin_rowmajor(storage: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
     """Pin every storage ring to the row-major (default) layout.
 
     XLA's layout assignment is free to pick image-ring layouts per
-    program: jnp.zeros picks major_to_minor (2,3,0,1) for (E,T,84,84)
-    while the learner's gather program wants (0,1,2,3) — without this
-    constraint EVERY update dispatch pays a full-ring relayout copy
-    (measured 2.3 ms per dispatch on a 462 MB Atari obs ring, ~45% of
-    the whole fused program; see tools/profile_update.py). Pinning the
-    layout at insert/init keeps init, insert, and update agreeing so
-    donation aliases the ring instead of copying it."""
+    program, and a ring whose layout differs between the program that
+    makes it and the one that consumes it pays a full-ring relayout
+    copy per dispatch. Pinning the layout at insert/init keeps init,
+    insert, and update agreeing so donation aliases the ring instead
+    of copying it. (On the GPU the compiled learner superstep is the
+    same with and without the pin — row-major ring, no ring-sized
+    copy, as tools/dump_superstep_hlo.py shows.)"""
     def pin(x):
         if x.ndim < 2:
             return x
@@ -78,8 +78,8 @@ class ReplayConfig:
     alpha: float = 0.6       # PER exponent (priorities stored ^alpha)
     min_priority: float = 1e-6
     # Priority structure backend: "dense" (ops/dense_tree.py — flat
-    # array + block partial sums, all vector ops; the TPU-native
-    # default) or "tree" (ops/sum_tree.py — classic binary sum tree,
+    # array + block partial sums, all vector ops; the default) or
+    # "tree" (ops/sum_tree.py — classic binary sum tree,
     # log-depth descend/scatter chains; kept for comparison and for
     # the reference's exact data structure).
     sampler: str = "dense"
@@ -109,7 +109,7 @@ class ReplayConfig:
         return self.num_envs * self.steps_per_env
 
 
-class ReplayState(struct.PyTreeNode):
+class ReplayState(PyTreeNode):
     """Replay buffer contents (a pytree: donate into jitted steps)."""
     storage: Dict[str, jnp.ndarray]   # each (E, T, ...)
     t: jnp.ndarray                    # int32 — unwrapped write cursor (columns)
@@ -397,7 +397,7 @@ def frame_stack_union_gather_nhwc(cfg: ReplayConfig, state: ReplayState,
     frame axis lands MINOR-most: one gather per union slot, stacked on
     the last axis, so the conv-ready NHWC tensor comes straight out of
     the gathers and the whole-batch (B, W, H, Wd) -> NHWC relayout
-    copy the r4 profile charged at 12.5% of device time never exists.
+    copy between gather and conv never exists.
     Used by the learner when the model is configured channels_last.
     Returns (obs_t, obs_tn), each (B, ..., num_frames).
     """

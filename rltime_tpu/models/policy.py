@@ -1,10 +1,10 @@
 """QPolicy: torso + optional LSTM + Q head, with sequence unroll.
 
-TPU-native re-design of the reference's model/policy layer (SURVEY.md
-§1 L5: `forward(obs, state) -> (q/quantiles, state)` with recurrent
-state bookkeeping). One flax module serves both the acting side and the
-learner side — no separate "actor_policy" mirror; weight publication is
-just handing the same param pytree to the acting step.
+Re-design of the reference's model/policy layer (SURVEY.md §1 L5:
+`forward(obs, state) -> (q/quantiles, state)` with recurrent state
+bookkeeping), in plain jax.numpy. One model serves both the acting
+side and the learner side — no separate "actor_policy" mirror; weight
+publication is just handing the same param pytree to the acting step.
 
 Sequence processing (R2D2) is a `lax.scan` over time on one device
 (SURVEY.md §5.7: sequences are short and fixed; no sequence
@@ -17,7 +17,6 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from rltime_tpu.models.torso import (
     MLPTorso, MinAtarCNNTorso, NatureCNNTorso,
@@ -62,63 +61,101 @@ class ModelConfig:
         return self.lstm_size > 0
 
 
-class QPolicy(nn.Module):
-    cfg: ModelConfig
+def lstm_params(key, d_in: int, size: int):
+    """LSTM cell params, gates fused in the order i, f, g, o: a
+    LeCun-normal input kernel (d_in, 4H), an orthogonal recurrent
+    kernel per gate (H, 4H) and a zero bias (4H,)."""
+    k_in, k_rec = jax.random.split(key)
+    orth = jax.nn.initializers.orthogonal()
+    return {"i_kernel": jax.nn.initializers.lecun_normal()(
+                k_in, (d_in, 4 * size), jnp.float32),
+            "h_kernel": jnp.concatenate(
+                [orth(k, (size, size), jnp.float32)
+                 for k in jax.random.split(k_rec, 4)], axis=1),
+            "bias": jnp.zeros((4 * size,), jnp.float32)}
 
-    def setup(self):
-        c = self.cfg
+
+def lstm_cell(params, carry, x):
+    """One float32 LSTM step: c' = f*c + i*g, h' = o*tanh(c').
+    carry (c, h) each (B, H); x (B, D). Returns ((c', h'), h')."""
+    c, h = carry
+    z = (jnp.dot(x, params["i_kernel"]) + jnp.dot(h, params["h_kernel"])
+         + params["bias"])
+    i, f, g, o = jnp.split(z, 4, axis=-1)
+    c = jax.nn.sigmoid(f) * c + jax.nn.sigmoid(i) * jnp.tanh(g)
+    h = jax.nn.sigmoid(o) * jnp.tanh(c)
+    return (c, h), h
+
+
+class QPolicy:
+    """Torso -> optional LSTM -> Q head, as two pure functions of a
+    param tree {"params": {"torso_mod", ["lstm"], "head_mod"}}."""
+
+    def __init__(self, cfg: ModelConfig):
+        c = cfg
+        self.cfg = c
         if ((c.channels_last or c.space_to_depth)
                 and c.torso != "nature_cnn"):
             raise ValueError(
                 "channels_last/space_to_depth are Nature-CNN options "
                 f"(torso={c.torso!r})")
         if c.torso == "mlp":
-            self.torso_mod = MLPTorso(hidden=c.mlp_hidden,
-                                      compute_dtype=c.dtype)
+            self.torso = MLPTorso(hidden=c.mlp_hidden, compute_dtype=c.dtype)
         elif c.torso == "nature_cnn":
-            self.torso_mod = NatureCNNTorso(
+            self.torso = NatureCNNTorso(
                 channels=c.cnn_channels, fc=c.cnn_fc,
                 compute_dtype=c.dtype,
                 channels_last=c.channels_last,
                 space_to_depth=c.space_to_depth)
         elif c.torso == "minatar_cnn":
-            self.torso_mod = MinAtarCNNTorso(channels=c.cnn_channels,
-                                             fc=c.cnn_fc,
-                                             compute_dtype=c.dtype)
+            self.torso = MinAtarCNNTorso(channels=c.cnn_channels,
+                                         fc=c.cnn_fc,
+                                         compute_dtype=c.dtype)
         else:
             raise ValueError(f"unknown torso {c.torso!r}")
-        if c.recurrent:
-            self.lstm = nn.OptimizedLSTMCell(c.lstm_size)
         if c.head == "linear":
-            self.head_mod = LinearQHead(c.num_actions)
+            self.head = LinearQHead(c.num_actions)
         elif c.head == "dueling":
-            self.head_mod = DuelingQHead(c.num_actions,
-                                         hidden=c.dueling_hidden,
-                                         compute_dtype=c.dtype)
+            self.head = DuelingQHead(c.num_actions, hidden=c.dueling_hidden,
+                                     compute_dtype=c.dtype)
         elif c.head == "iqn":
-            self.head_mod = IQNHead(c.num_actions,
-                                    embed_dim=c.iqn_embed_dim,
-                                    dueling=c.iqn_dueling,
-                                    hidden=c.dueling_hidden,
-                                    compute_dtype=c.dtype)
+            self.head = IQNHead(c.num_actions, embed_dim=c.iqn_embed_dim,
+                                dueling=c.iqn_dueling,
+                                hidden=c.dueling_hidden,
+                                compute_dtype=c.dtype)
         else:
             raise ValueError(f"unknown head {c.head!r}")
 
-    def __call__(self, obs, rnn_state=(), taus: Optional[jnp.ndarray] = None):
+    def init(self, key, obs):
+        """Fresh params for inputs shaped like `obs` (only its shape
+        and dtype are read)."""
+        k_torso, k_lstm, k_head = jax.random.split(key, 3)
+        torso = self.torso.init(k_torso, obs)
+        d = jax.eval_shape(self.torso, torso, obs).shape[-1]
+        params = {"torso_mod": torso}
+        if self.cfg.recurrent:
+            params["lstm"] = lstm_params(k_lstm, d, self.cfg.lstm_size)
+            d = self.cfg.lstm_size
+        params["head_mod"] = self.head.init(k_head, d)
+        return {"params": params}
+
+    def apply(self, params, obs, rnn_state=(),
+              taus: Optional[jnp.ndarray] = None):
         """One step. obs (B, ...); rnn_state () or (c, h) each (B, H).
 
         Returns (q, new_rnn_state): q is (B, A), or (B, N, A) quantile
         values when the head is IQN (taus required, shape (B, N)).
         """
-        feat = self.torso_mod(obs)
+        p = params["params"]
+        feat = self.torso(p["torso_mod"], obs)
         if self.cfg.recurrent:
-            rnn_state, feat = self.lstm(rnn_state, feat)
+            rnn_state, feat = lstm_cell(p["lstm"], rnn_state, feat)
         if self.cfg.is_iqn:
             if taus is None:
                 raise ValueError("IQN head requires taus")
-            q = self.head_mod(feat, taus)
+            q = self.head(p["head_mod"], feat, taus)
         else:
-            q = self.head_mod(feat)
+            q = self.head(p["head_mod"], feat)
         return q, rnn_state
 
 
@@ -137,11 +174,7 @@ def initial_rnn_state(cfg: ModelConfig, batch: int):
 
 
 def init_params(cfg: ModelConfig, key, example_obs):
-    model = make_model(cfg)
-    state = initial_rnn_state(cfg, example_obs.shape[0])
-    taus = (jnp.full((example_obs.shape[0], cfg.num_tau), 0.5)
-            if cfg.is_iqn else None)
-    return model.init(key, example_obs, state, taus)
+    return make_model(cfg).init(key, example_obs)
 
 
 def q_values(cfg: ModelConfig, quantiles_or_q: jnp.ndarray) -> jnp.ndarray:

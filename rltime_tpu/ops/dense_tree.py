@@ -1,11 +1,11 @@
-"""Dense two-level prioritized sampler — the TPU-native sum tree.
+"""Dense two-level prioritized sampler — a vectorized sum tree.
 
 Drop-in alternative to ops/sum_tree.py for proportional PER (SURVEY.md
 §2 "Prioritized replay", arxiv 1511.05952). The classic binary sum
 tree is pointer-chasing: sampling descends log2(N) DEPENDENT gather
 levels and every priority write rewrites log2(N)+1 ancestor levels
-with scatter-adds — all serialized, all tiny, the least MXU/VPU
-friendly shape there is.
+with scatter-adds — all serialized, all tiny, the least friendly
+shape there is for a wide vector machine.
 
 This layout keeps ONE flat (N,) priority array and derives a single
 level of block partial sums at sample time:
@@ -23,10 +23,8 @@ scatter into the flat array instead of a log-depth scatter-add chain.
 Zero-leaf proofness falls out of the math: "smallest j with
 cumsum[j] > t" can never land on a zero-priority leaf, because a zero
 leaf's cumsum equals its predecessor's, so the predecessor wins.
-(Measured on the sandbox TPU v5e vs sum_tree.py at N=64K, B=256,
-tools/compare_samplers.py: sample+priority-update cycle ~2x faster
-(0.49 vs 1.04 ms per 16-cycle scan iter), full K=4 DQN update
-2.64 vs 3.11 ms — the shared chip is noisy, but dense won every run.)
+(tools/compare_samplers.py A/Bs this against sum_tree.py at the bench
+shapes; on the H100 that A/B is not measured yet.)
 
 API mirrors ops/sum_tree.py: init / total / get / set_priorities /
 sample over a flat array ("tree" naming kept so history/replay.py can
@@ -87,8 +85,8 @@ def set_priorities(tree: jnp.ndarray, idx: jnp.ndarray,
 
     `unique=True` asserts the CALLER guarantees idx has no duplicates
     (replay_insert's index sets are unique by construction) and skips
-    the dedup sort — on TPU a 2k-element argsort costs ~1ms, an order
-    of magnitude more than the scatter itself."""
+    the dedup sort — a device argsort costs far more than the scatter
+    itself."""
     idx = idx.astype(jnp.int32)
     priorities = priorities.astype(tree.dtype)
     if unique:

@@ -1,6 +1,6 @@
 """Q-learning loss kernels: Huber / double-DQN / IQN quantile-Huber.
 
-TPU-native re-design of the reference's per-algorithm loss functions
+Device-side re-design of the reference's per-algorithm loss functions
 (SURVEY.md §2 "DQN loss", "IQN loss"; §3.3). All functions are pure,
 batch-first jnp — they fuse into the single jitted update step.
 Per-sample TD errors are returned for priority updates (PER).

@@ -1,7 +1,7 @@
 """Return pipelines: n-step returns, lambda returns, value rescaling.
 
 The reference assembles n-step returns on the host BEFORE inserting
-into replay (SURVEY.md §2 "Online/n-step history"). TPU-native
+into replay (SURVEY.md §2 "Online/n-step history"). Device-side
 re-design: replay stores RAW per-step transitions in time-major per-env
 rings, and n-step quantities are computed AT SAMPLE TIME on device from
 the gathered reward/done windows — no host assembler, no duplicated

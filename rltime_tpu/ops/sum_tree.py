@@ -1,6 +1,6 @@
 """On-device segment (sum) tree for prioritized replay.
 
-TPU-native replacement for the reference's numpy sum-tree loop
+Device-side replacement for the reference's numpy sum-tree loop
 (SURVEY.md §2 "Prioritized replay": proportional PER with sum-tree
 sampling / priority updates, per arxiv 1511.05952). The reference
 descends the tree one sample at a time in Python; here the whole batch
@@ -57,7 +57,7 @@ def set_priorities(tree: jnp.ndarray, idx: jnp.ndarray,
     Duplicate indices resolve to the LAST occurrence (sorted stable, so
     the final value for a repeated leaf is the value paired with its
     last occurrence in the input order). `unique=True` asserts the
-    caller guarantees no duplicates and skips the dedup sort (a TPU
+    caller guarantees no duplicates and skips the dedup sort (a device
     argsort costs far more than the scatters themselves).
     """
     n = capacity(tree)

@@ -1,8 +1,8 @@
 """Ape-X topology: host-sharded actors -> sharded replay -> DP learner.
 
 The [BJ] config #5 / SURVEY.md §7 M5 subsystem. Mapping of the
-reference's actor-pool/learner processes (SURVEY.md §2c) onto a TPU
-pod slice:
+reference's actor-pool/learner processes (SURVEY.md §2c) onto a
+multi-host GPU cluster:
 
   * every HOST runs one python process (`jax.distributed.initialize`)
     driving E_per_device * local_device_count lockstep env lanes — the
@@ -16,7 +16,8 @@ pod slice:
     exactly its local devices' env lanes — the host->device stream of
     SURVEY.md §3.5; no cross-host data movement on insert;
   * the learner update is the shard_map step from parallel/mesh.py:
-    per-device PER sampling + grad pmean over ICI; target-net sync is
+    per-device PER sampling + grad pmean over the interconnect;
+    target-net sync is
     free (replicated);
   * per-actor epsilon ladder spans the GLOBAL env lanes (Ape-X
     semantics: lane i of E_global gets eps^(1+alpha*i/(E-1))).
@@ -262,7 +263,7 @@ class ApexTrainer:
         return local_shard_rows(x)
 
     def save_checkpoint(self, protect: bool = True):
-        """Lead process saves the replicated learner state (orbax);
+        """Lead process saves the replicated learner state;
         EVERY process additionally writes a per-process sidecar
         (checkpoints_aux/<step>/proc<i>.npz) holding its actor PRNG
         stream and — with `checkpoint_replay` — its local replay
@@ -306,7 +307,7 @@ class ApexTrainer:
     def try_resume(self):
         """Resume from the shared result dir. EVERY process restores
         the same learner checkpoint (multi-host runs assume a shared
-        filesystem, the Cloud TPU norm) then re-replicates — lead-only
+        filesystem, the usual cluster setup) then re-replicates — lead-only
         restore would silently desync the replicated state. Each
         process then restores ITS OWN sidecar: actor PRNG stream +
         (optional) local replay shards. Env instances restart fresh

@@ -1,7 +1,7 @@
 """Fused SPMD superstep: the whole Ape-X iteration as ONE XLA program.
 
 For device-resident envs (envs/device.py, envs/minatar*.py), nothing
-in the train loop needs the host at all — so the TPU-native end-state
+in the train loop needs the host at all — so the device-resident end-state
 is a single shard_map'd computation over the ('data','model') mesh in
 which every device, per superstep:
 
@@ -11,7 +11,8 @@ which every device, per superstep:
      tree), optionally with actor-side initial priorities (1-step
      |TD| computed in-register during acting — SURVEY.md §0 item 5),
   3. runs K learner updates (DQN/IQN feed-forward or R2D2 sequence),
-     `pmean`ing gradients over ICI — params stay replicated, target
+     `pmean`ing gradients over the interconnect — params stay
+     replicated, target
      sync is free.
 
 Host involvement per superstep: ONE dispatch + the logged scalars.
@@ -37,7 +38,6 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -50,9 +50,10 @@ from rltime_tpu.models.policy import (
 )
 from rltime_tpu.parallel.mesh import replay_partition_specs
 from rltime_tpu.training.learner import AlgoConfig
+from rltime_tpu.utils.pytree import PyTreeNode
 
 
-class FusedActorState(struct.PyTreeNode):
+class FusedActorState(PyTreeNode):
     env_state: Any            # leaves (E, ...) — sharded on axis 0
     done_prev: jnp.ndarray    # (E,)
     rnn: tuple
@@ -201,8 +202,8 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
     Same work per superstep as the act-then-update shape, but (a) the
     cadence is per-STEP — updates sample data ≤1 step old, priorities
     and acting params refresh every step, i.e. STRICTLY fresher than
-    any chunked recipe (the r4 sweep showed coarse L=128 chunking
-    costs score on cadence-sensitive configs), and (b) the per-chunk
+    any chunked recipe (coarse L=128 chunking cost score on
+    cadence-sensitive configs), and (b) the per-chunk
     boundaries that limited throughput amortize over the whole scan,
     and the 1-column insert frees chunk_len from the ring-safety
     bound steps_per_env >= 2*(chunk_len+horizon).
@@ -236,7 +237,7 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
         insert_cfg = local_replay_cfg
 
     def _run_updates(tstate, rstate, beta, n):
-        # K learner updates with ICI pmean. Storage stays OUT of
+        # K learner updates with a gradient pmean. Storage stays OUT of
         # the scan carry (read-only in updates; carrying it costs
         # full-ring boundary copies — see learner._scan_updates).
         storage = rstate.storage
@@ -336,8 +337,8 @@ def make_superstep(env, model_cfg: ModelConfig, algo_cfg: AlgoConfig,
             # these equal the Trainer path's debug leaves bit-for-bit
             metric_specs.update(
                 debug_leaf=P("data"), debug_td=P("data"),
-                debug_chunk_action=P("data"))
-            if algo_cfg.algo != "r2d2":   # r2d2 emits leaf+td only
+                debug_q=P("data"), debug_chunk_action=P("data"))
+            if algo_cfg.algo != "r2d2":   # r2d2 has no per-sample action
                 metric_specs["debug_action"] = P("data")
         f = shard_map(inner, mesh=mesh,
                       in_specs=(ts_specs, aspecs, rspecs,
@@ -434,10 +435,10 @@ class FusedApexTrainer:
         self.mesh = mesh if mesh is not None else make_mesh()
         d = self.mesh.shape["data"]
         self.num_shards = d
-        # Multi-process (multi-host pod) operation: the mesh may span
+        # Multi-process (multi-host) operation: the mesh may span
         # devices this process cannot address. All global state is
         # built via callbacks/process-local data (never device_put),
-        # checkpoints split into a lead orbax save (replicated
+        # checkpoints split into a lead save (replicated
         # learner) + per-process sidecars (sharded actor/replay rows).
         self.proc = jax.process_index()
         self.is_lead = self.proc == 0
@@ -682,12 +683,12 @@ class FusedApexTrainer:
                             str(step), f"proc{self.proc}")
 
     def save_checkpoint(self, protect: bool = True):
-        """Lead process: orbax save of the replicated learner state.
+        """Lead process: checkpoint of the replicated learner state.
         EVERY process: a sidecar dir of per-leaf .npy files holding its
         LOCAL rows of the 'data'-sharded actor state (+ replay shards
         with `checkpoint_replay`) — written one leaf at a time so peak
         host memory is one field's local block, never the whole ring
-        through a single orbax pytree (round-3 verdict Weak #5); no
+        through a single pytree save (round-3 verdict Weak #5); no
         cross-process data movement."""
         import os
         from rltime_tpu.parallel.mesh import local_shard_rows
@@ -742,7 +743,7 @@ class FusedApexTrainer:
             # a resumed run must not mark a worse mean as 'best'
             self._best_score = float(best["score"])
         # every process restores the SAME learner checkpoint (shared
-        # filesystem, the Cloud TPU norm) and re-replicates — lead-only
+        # filesystem, the usual cluster setup) and re-replicates — lead-only
         # restore would silently desync the replicated state
         example = {"train_state": jax.device_get(self.train_state),
                    "host_state": self._host_state()}

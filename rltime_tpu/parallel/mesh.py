@@ -2,7 +2,7 @@
 §3.5, §5.8).
 
 The reference's "distributed layer" is multiprocess actors feeding one
-learner over pipes (SURVEY.md §2c). The TPU-native equivalent:
+learner over pipes (SURVEY.md §2c). The device-mesh equivalent:
 
   * a global `jax.sharding.Mesh` with axes ('data', 'model') — 'model'
     reserved/unused (SURVEY.md §2b: cheap future-proofing);
@@ -12,7 +12,8 @@ learner over pipes (SURVEY.md §2c). The TPU-native equivalent:
     trees") — sampling never crosses shards, so no collective is paid
     on the sample path;
   * the update step runs under `shard_map`: each device samples B/d
-    from its shard, computes grads, `pmean`s them over ICI, and applies
+    from its shard, computes grads, `pmean`s them over the interconnect
+    (NVLink between GPUs), and applies
     the identical optimizer step — params/opt state stay replicated
     (target-net "broadcast" is free: replicated arrays never move);
   * priority write-back is shard-local; `max_priority` is kept

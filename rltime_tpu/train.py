@@ -5,7 +5,8 @@
 
 `<config>` is a JSON path or a preset name under configs/
 (cartpole_dqn, pong_dqn, breakout_iqn, atari_r2d2, apex_multihost).
-Dotted overrides compose onto the loaded config.
+Dotted overrides compose onto the loaded config. The compile cache
+follows `JAX_COMPILATION_CACHE_DIR`, else `<checkout>/.jax_cache/`.
 """
 from __future__ import annotations
 
@@ -23,10 +24,6 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="force the CPU backend (8 virtual devices)")
     parser.add_argument("--resume", action="store_true")
-    parser.add_argument("--cache-dir",
-                        default=os.path.expanduser(
-                            "~/.cache/rltime_tpu_jax"),
-                        help="jax persistent compile cache ('' = off)")
     args, overrides = parser.parse_known_args(argv)
 
     import jax
@@ -35,11 +32,8 @@ def main(argv=None):
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8").strip()
         jax.config.update("jax_platforms", "cpu")
-    if args.cache_dir:
-        os.makedirs(args.cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          0.5)
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from rltime_tpu.config.config import apply_overrides, load_config
 

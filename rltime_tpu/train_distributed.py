@@ -1,14 +1,20 @@
 """Multi-host Ape-X train CLI (SURVEY.md §5.8, [BJ] config #5).
 
-Launch the SAME command on every host of the pod slice:
+Launch the SAME command on every host, once per host:
 
     python -m rltime_tpu.train_distributed apex_multihost \
         [--coordinator HOST:PORT --num-processes N --process-id I] \
         [--key.sub=value ...]
 
-Without coordinator flags, jax.distributed.initialize() auto-detects
-the TPU pod environment (standard on Cloud TPU). On a single machine
-this degenerates to a single-process multi-device run.
+One process per host drives all of that host's GPUs. If several
+processes share a host, each must see only its own GPU (set
+CUDA_VISIBLE_DEVICES per process): a JAX process reserves most of the
+memory of every GPU it opens, so two processes that open the same
+cards fail for want of memory. Without coordinator flags this is a
+single-process multi-device run on the local devices
+(RLTIME_TPU_AUTO_DISTRIBUTED=1 defers to jax.distributed.initialize()'s
+own cluster detection instead). The compile cache follows
+`JAX_COMPILATION_CACHE_DIR`, else `<checkout>/.jax_cache/`.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ def main(argv=None):
             process_id=args.process_id)
     elif int(os.environ.get("RLTIME_TPU_AUTO_DISTRIBUTED", "0")):
         jax.distributed.initialize()
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from rltime_tpu.config.config import apply_overrides, load_config
 

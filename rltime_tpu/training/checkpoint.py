@@ -1,20 +1,25 @@
 """Checkpoint/resume (SURVEY.md §5.4).
 
-Orbax-backed checkpoints of {params, target params, opt state, PRNG
-key, counters} plus host-side counters — enough for deterministic
-resume (the fixed-seed parity bar). Replay contents are optionally
-included (off by default, matching the reference's model-only
-checkpoints).
+Checkpoints of {params, target params, opt state, PRNG key, counters}
+plus host-side counters — enough for deterministic resume (the
+fixed-seed parity bar). Replay contents are optionally included (off
+by default, matching the reference's model-only checkpoints).
+
+Format: `checkpoints/<step>/arrays.npz` holds every leaf as a host
+numpy array; `tree.json` maps each leaf's pytree path to its entry.
+A save is written to a hidden temporary directory and renamed into
+place, so a reader never sees a half-written step.
 """
 from __future__ import annotations
 
+import json
 import os
+import shutil
 from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import orbax.checkpoint as ocp
 
 from rltime_tpu.training.learner import TrainState
 
@@ -41,25 +46,57 @@ def _rewrap_keys(example, restored):
     return jax.tree.map(f, example, restored)
 
 
-def _local_checkpointer() -> ocp.Checkpointer:
-    """Checkpointer whose barriers involve ONLY this process.
+def _path_entry(k) -> list:
+    """One pytree path element as JSON: ["d", key] for dict keys and
+    dataclass fields, ["s", index] for sequence positions."""
+    if isinstance(k, jax.tree_util.DictKey):
+        return ["d", k.key]
+    if isinstance(k, jax.tree_util.GetAttrKey):
+        return ["d", k.name]
+    if isinstance(k, jax.tree_util.SequenceKey):
+        return ["s", k.idx]
+    raise TypeError(f"unsupported pytree path element {k!r}")
 
-    Checkpoints here are written from host (device_get'd) arrays by
-    whichever process owns the result dir, so orbax's default
-    all-process sync barriers would deadlock multi-host runs where only
-    the lead process saves (observed: gloo DEADLINE_EXCEEDED in
-    tests/test_multiprocess.py before this fix).
-    """
-    me = 0
-    try:
-        me = jax.process_index()
-    except RuntimeError:
-        pass
-    return ocp.Checkpointer(
-        ocp.PyTreeCheckpointHandler(),
-        multiprocessing_options=ocp.options.MultiprocessingOptions(
-            primary_host=me, active_processes={me},
-            barrier_sync_key_prefix=f"proc{me}"))
+
+def _path_id(path) -> str:
+    return json.dumps([_path_entry(k) for k in path])
+
+
+def _write(path: str, tree) -> None:
+    """Host-side write of `tree` (no collective: only the caller's
+    process takes part, so a lead-only save cannot deadlock a
+    multi-process run)."""
+    leaves = jax.tree_util.tree_flatten_with_path(_strip_keys(tree))[0]
+    arrays = {f"a{i}": np.asarray(jax.device_get(x))
+              for i, (_, x) in enumerate(leaves)}
+    index = {_path_id(p): f"a{i}" for i, (p, _) in enumerate(leaves)}
+    parent, name = os.path.split(path)
+    tmp = os.path.join(parent, f".{name}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "tree.json"), "w") as f:
+        json.dump(index, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def _as_plain(entries) -> Any:
+    """Nested dicts/lists from [(path entries, array)] (no example)."""
+    root: dict = {}
+    for keys, x in entries:
+        node = root
+        for kind, k in keys[:-1]:
+            node = node.setdefault((kind, k), {})
+        node[tuple(keys[-1])] = x
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(kind == "s" for kind, _ in node):
+            return [build(node[k]) for k in sorted(node)]
+        return {k: build(v) for (_, k), v in node.items()}
+    return build(root)
 
 
 def save(result_dir: str, step: int, train_state: TrainState,
@@ -77,8 +114,8 @@ def save(result_dir: str, step: int, train_state: TrainState,
         ckpt["replay_state"] = replay_state
     if extra:
         ckpt.update(extra)
-    with _local_checkpointer() as ckptr:
-        ckptr.save(path, _strip_keys(ckpt), force=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _write(path, ckpt)
     return path
 
 
@@ -97,7 +134,6 @@ def record_best(result_dir: str, step: int, score: float,
     the checkpoint dir exists SOLELY for best-tracking (i.e. is not
     also an interval/final checkpoint) — such dirs are reclaimed by
     `maybe_record_best` when a newer best supersedes them."""
-    import json
     d = os.path.join(result_dir, "checkpoints")
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "best.json"), "w") as f:
@@ -137,7 +173,6 @@ def maybe_record_best(result_dir: str, best_score: float,
     if (prev is not None and prev.get("best_only")
             and int(prev["step"]) != int(env_steps)
             and int(prev["step"]) not in protected):
-        import shutil
         shutil.rmtree(os.path.join(result_dir, "checkpoints",
                                    str(prev["step"])),
                       ignore_errors=True)
@@ -180,7 +215,6 @@ def derive_protected_steps(result_dir: str) -> set:
 
 def best_step(result_dir: str) -> Optional[Dict[str, Any]]:
     """{"step": int, "score": float} of the best checkpoint, or None."""
-    import json
     p = os.path.join(result_dir, "checkpoints", "best.json")
     if not os.path.isfile(p):
         return None
@@ -190,6 +224,9 @@ def best_step(result_dir: str) -> Optional[Dict[str, Any]]:
 
 def restore(result_dir: str, step: Optional[int] = None,
             example: Optional[dict] = None) -> Dict[str, Any]:
+    """Load a checkpoint as host numpy arrays. With `example`, the
+    result has its structure (dataclasses and typed PRNG keys
+    included); without one, plain nested dicts and lists."""
     if step is None:
         step = latest_step(result_dir)
         if step is None:
@@ -197,16 +234,17 @@ def restore(result_dir: str, step: Optional[int] = None,
                 f"no checkpoints under {result_dir!r}")
     path = os.path.abspath(os.path.join(result_dir, "checkpoints",
                                         str(step)))
-    with _local_checkpointer() as ckptr:
+    with open(os.path.join(path, "tree.json")) as f:
+        index = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as arrays:
         if example is not None:
-            stripped = _strip_keys(example)
-            restored = ckptr.restore(
-                path, args=ocp.args.PyTreeRestore(
-                    item=stripped,
-                    restore_args=jax.tree.map(
-                        lambda _: ocp.RestoreArgs(), stripped)))
+            paths, treedef = jax.tree_util.tree_flatten_with_path(
+                _strip_keys(example))
+            restored = jax.tree_util.tree_unflatten(
+                treedef, [arrays[index[_path_id(p)]] for p, _ in paths])
             restored = _rewrap_keys(example, restored)
         else:
-            restored = ckptr.restore(path)
+            restored = _as_plain([(json.loads(p), arrays[a])
+                                  for p, a in index.items()])
     restored["step"] = step
     return restored

@@ -6,7 +6,7 @@ stored initial recurrent state, burn-in prefix unrolled without
 gradient to warm the state, per-sequence priority = eta-mix of
 max/mean |TD| (arxiv 1803.00933 lineage).
 
-TPU mapping: a sampled column `s` is the start of the burn-in window;
+Device mapping: a sampled column `s` is the start of the burn-in window;
 the replay ring serves the whole [s, s+burn+len+n) window as one
 gather (no separate sequence storage — SURVEY.md §7 M4 executed on
 the same time-major ring as everything else). The unroll is a single
@@ -163,7 +163,7 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                         * batch["weight"])
         prio = losses.sequence_priority(jnp.abs(td), mask,
                                         algo_cfg.eta)
-        return loss, (prio, jnp.mean(q_sa))
+        return loss, (prio, q_sa)
 
     def _warm_state(params, obs_seq, done_prev_seq, state0):
         def step(carry, xs):
@@ -216,7 +216,7 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
                      state0=(s0["rnn_c"], s0["rnn_h"]),
                      weight=idx["weight"])
 
-        (loss, (prio, qm)), grads = jax.value_and_grad(
+        (loss, (prio, q_sa)), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(state.params, state.target_params,
                                    batch)
         if axis_name is not None:
@@ -232,12 +232,14 @@ def make_r2d2_update_step(model_cfg: ModelConfig, algo_cfg: AlgoConfig,
             state.target_params, params)
         rstate = replay_update_priorities(replay_cfg, rstate,
                                           idx["leaf"], prio)
-        metrics = dict(loss=loss, q=qm, td_abs=jnp.mean(prio),
+        metrics = dict(loss=loss, q=jnp.mean(q_sa),
+                       td_abs=jnp.mean(prio),
                        grad_norm=optax.global_norm(grads),
                        mean_weight=jnp.mean(idx["weight"]))
         if algo_cfg.debug_outputs:
             metrics["debug_leaf"] = idx["leaf"]
             metrics["debug_td"] = prio
+            metrics["debug_q"] = jnp.mean(q_sa, axis=-1)
         return TrainState(params=params, target_params=target_params,
                           opt_state=opt_state, key=key, updates=upd), \
             rstate, metrics

@@ -1,6 +1,6 @@
 """Trainer: the host driver gluing acting, replay, and the learner.
 
-SURVEY.md §3.1 control flow, re-drawn for TPU (§3.5): the loop
+SURVEY.md §3.1 control flow, re-drawn for an accelerator (§3.5): the loop
 alternates {device acting over all lanes, single-transfer chunk
 insert, K jitted update steps} — the update path never touches host.
 

@@ -12,10 +12,10 @@ sum-tree sample -> frame-stack window gather -> Nature-CNN fwd/bwd ->
 Adam -> priority write-back — S x (1 chunk insert + K updates) scanned
 into ONE XLA program. The chunk loop is a lax.scan with the replay
 state in the carry: XLA keeps the ring update IN PLACE across
-iterations (verified in HLO), so the one entry+exit relayout pair the
-ring's committed layout costs (~4.5 ms on the 462 MB obs ring)
-amortizes over S chunks instead of being paid per chunk. Compile time
-is O(1) in S because it's a scan, not an unroll.
+iterations (check with tools/dump_superstep_hlo.py), so any entry+exit
+copy of the 462 MB obs ring at the loop boundary amortizes over S
+chunks instead of being paid per chunk. Compile time is O(1) in S
+because it's a scan, not an unroll.
 """
 from __future__ import annotations
 
@@ -25,23 +25,11 @@ import numpy as np
 
 # Canonical bench shapes (BASELINE.json config #2 scaled to one chip).
 E, T, L, F, N_STEP = 64, 1024, 32, 4, 3
-# r4 MFU sweep (tools/sweep_mfu.py, all variants in ONE process,
-# post-shadowing-fix run): at fixed sample ratio (batch*K = 1024
-# transitions per chunk, the config-#2 recipe's 0.5 samples/insert)
-# batch 1024 x K=1 + batched_next_forward beat the r3 shape
-# (256 x 4, off) 362.4k vs 321.0k tx/s (+12.9%); batched_next_forward
-# won at every batch (+4.5% / +5.6% / +7.1%). An update-dominated
-# K=7 shape reaches 424.0k tx/s (insert+relayout amortized over 7
-# updates) — kept out of the headline because it triples the recipe's
-# sample ratio.
+# Fixed sample ratio: batch*K = 1024 transitions per chunk, the
+# config-#2 recipe's 0.5 samples/insert. Batch and S were chosen on
+# other hardware; re-sweeping them on the GPU is an open ROADMAP item.
 BATCH = 1024
-S = 64          # chunks (supersteps) per dispatch. r5 same-process
-                # sweep (tools/sweep_gather_fix.py): 64 = 389.4k tx/s
-                # > 32 @ 361.6k (+7% — deeper scan amortizes the ring
-                # entry/exit relayout + dispatch latency further);
-                # 96 = 377.9k and 128 = 382.4k regress (bigger staged
-                # chunk buffers), so 64 is the knee. (r3 swept
-                # 8/16/32: 251k/267k/280k.)
+S = 64          # chunks (supersteps) per dispatch
 K = 1           # learner updates per chunk
 
 
@@ -50,18 +38,17 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
           space_to_depth: bool = False, unroll: int = 1,
           pipelined: bool = False, supersteps: int = S,
           algo: str = "dqn", num_envs: int = E, chunk_len: int = L,
-          **algo_overrides):
+          compute_dtype: str = "bfloat16", **algo_overrides):
     """Construct the bench program. Returns a namespace with:
     superstep (jitted), tstate, rstate, stacked(base)->device chunks,
     and the static shape constants.
 
-    `batch`/`k`/`algo_overrides` parameterize MFU experiments
-    (tools/sweep_mfu.py): transitions consumed per chunk stays
-    batch*k, so tx/s numbers are comparable at fixed sample ratio.
-    `channels_last`/`space_to_depth` (model) plus
-    algo.gather_barrier and `unroll` (chunk-scan unroll for XLA
-    software pipelining) are the r5 gather-plane candidates
-    (tools/sweep_gather_fix.py)."""
+    `batch`/`k`/`algo_overrides` parameterize MFU experiments:
+    transitions consumed per chunk stays batch*k, so tx/s numbers are
+    comparable at fixed sample ratio. `channels_last`/`space_to_depth`
+    (model) plus algo.gather_barrier and `unroll` (chunk-scan unroll
+    for XLA software pipelining) are the gather-plane candidates
+    still to be A/B'd on the GPU (ROADMAP design debt 2)."""
     E_, L_ = num_envs, chunk_len
     import jax
     import jax.numpy as jnp
@@ -74,7 +61,7 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
         make_insert_and_update_step,
         make_pipelined_insert_and_update_step)
 
-    # IQN / R2D2 legs (VERDICT r4 Next #7): config-#3/#4-shaped
+    # IQN / R2D2 legs: config-#3/#4-shaped
     # learner programs so quantile-regression and sequence-unroll
     # throughput are on the perf record too (tools/bench_algo_legs.py).
     head = "dueling"
@@ -90,7 +77,7 @@ def build(warm_chunks: int = 8, seed: int = 0, batch: int = BATCH,
         algo_overrides.setdefault("eta", 0.9)
     mcfg = ModelConfig(num_actions=6, torso="nature_cnn",
                       head=head, lstm_size=lstm,
-                      compute_dtype="bfloat16",
+                      compute_dtype=compute_dtype,
                       channels_last=channels_last,
                       space_to_depth=space_to_depth)
     if algo == "dqn":

@@ -8,7 +8,7 @@ insert plane is shard-local by construction (parallel/mesh.py:8-19).
 This module parses compiled HLO text and lists every collective
 instruction with its payload size so a test can pin that property
 (tests/test_collective_census.py) and a tool can print the
-bytes-over-ICI model (tools/dump_superstep_hlo.py --fused).
+bytes-over-interconnect model (tools/dump_superstep_hlo.py --fused).
 """
 from __future__ import annotations
 

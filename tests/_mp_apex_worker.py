@@ -57,7 +57,7 @@ def main():
                   "checkpoint_replay": True},
     }
     t = ApexTrainer(cfg, result_dir).train()
-    # the lead's orbax write must be complete (and visible on the
+    # the lead's checkpoint write must be complete (and visible on the
     # shared dir) before any process starts the resume phase
     from jax.experimental import multihost_utils
     multihost_utils.sync_global_devices("checkpoint_written")

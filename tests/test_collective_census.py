@@ -76,7 +76,7 @@ def test_fused_superstep_collective_census(tmp_path):
     shard_bytes = (obs.size * obs.dtype.itemsize) // t.num_shards
     assert shard_bytes > 4 * cap
 
-    # 4) bytes-over-ICI model (STATUS.md "d=8 collective census"):
+    # 4) bytes-over-interconnect model (d=8 collective census):
     #    per superstep = K x combined-grad all-reduce + scalars. The
     #    census total must be explained by K x params + slack.
     K = t.loop_cfg.updates_per_chunk

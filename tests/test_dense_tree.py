@@ -1,7 +1,7 @@
 """Dense two-level sampler: same behavioral contract as the sum tree.
 
 ops/dense_tree.py must be a drop-in for ops/sum_tree.py (SURVEY.md §4
-item 1's invariants, re-run against the TPU-native layout), plus its
+item 1's invariants, re-run against the dense layout), plus its
 own geometry rules (padding leaves can never be sampled).
 """
 import jax

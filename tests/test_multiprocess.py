@@ -13,7 +13,7 @@ ONE process; these tests spawn REAL separate jax.distributed processes
 
 This is the closest in-sandbox stand-in for a multi-host pod run: the
 code path is identical, only the transport differs (gloo/TCP here,
-ICI/DCN there).
+the interconnect there).
 """
 import json
 import os

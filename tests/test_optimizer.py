@@ -46,7 +46,7 @@ def test_decay_count_survives_checkpoint_roundtrip():
     st = tx.init(p)
     for _ in range(4):
         _, st = tx.update(g, st, p)
-    # round-trip through host numpy (what orbax serializes)
+    # round-trip through host numpy (what checkpoints serialize)
     st2 = jax.tree.map(lambda x: jnp.asarray(np.asarray(x)), st)
     u_a, _ = tx.update(g, st, p)
     u_b, _ = tx.update(g, st2, p)

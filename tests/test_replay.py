@@ -249,3 +249,51 @@ def test_union_gather_matches_two_stacks():
     u_a, u_b = frame_stack_union_gather(cfg, state, env, col, F, n)
     np.testing.assert_array_equal(np.asarray(a), np.asarray(u_a))
     np.testing.assert_array_equal(np.asarray(b), np.asarray(u_b))
+
+
+def _seam_ring(window):
+    """A wrapped uint8 image ring with random episode ends, and sampled
+    columns on both sides of the ring seam (col 0 / col T-1)."""
+    E, T, L = 3, 64, 8
+    cfg = ReplayConfig(num_envs=E, steps_per_env=T, horizon=window,
+                       chunk_len=L, lookback=window - 1)
+    fields = {"obs": ((4, 5), jnp.uint8), "done": ((), jnp.bool_)}
+    st = replay_init(cfg, fields)
+    rng = np.random.default_rng(window)
+    for _ in range(10):         # 80 columns into a 64-ring
+        st = replay_insert(cfg, st, dict(
+            obs=rng.integers(0, 255, (E, L, 4, 5), np.uint8),
+            done=rng.random((E, L)) < 0.2))
+    env = np.array([0, 1, 2, 0, 1, 2, 1], np.int32)
+    col = np.array([0, 1, 2, T - 1, T - 2, 5, T - 3], np.int32)
+    return (cfg, st, env, col, np.asarray(st.storage["obs"]),
+            np.asarray(st.storage["done"]))
+
+
+@pytest.mark.parametrize("window", [1, 4, 7])
+def test_frame_stack_gather_across_seam_matches_numpy(window):
+    cfg, st, env, col, obs, done = _seam_ring(window)
+    T = cfg.steps_per_env
+    ref = []
+    for e, c in zip(env, col):
+        frames = []
+        for i in range(window):         # slot i: column c-(window-1)+i
+            s = c - (window - 1) + i
+            stale = any(done[e, k % T] for k in range(s, c))
+            frames.append(np.zeros_like(obs[e, 0]) if stale
+                          else obs[e, s % T])
+        ref.append(np.stack(frames))
+    got = frame_stack_gather(cfg, st, jnp.asarray(env), jnp.asarray(col),
+                             window)
+    np.testing.assert_array_equal(np.asarray(got), np.stack(ref))
+
+
+@pytest.mark.parametrize("window", [1, 4, 7])
+def test_gather_window_across_seam_matches_numpy(window):
+    cfg, st, env, col, obs, _ = _seam_ring(window)
+    T = cfg.steps_per_env
+    ref = np.stack([obs[e, (c + np.arange(window)) % T]
+                    for e, c in zip(env, col)])
+    got = replay_gather_window(cfg, st, jnp.asarray(env),
+                               jnp.asarray(col), window, fields=["obs"])
+    np.testing.assert_array_equal(np.asarray(got["obs"]), ref)

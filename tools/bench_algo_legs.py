@@ -1,8 +1,8 @@
-"""IQN and R2D2 learner throughput legs (VERDICT r4 Next #7).
+"""IQN and R2D2 learner throughput legs.
 
-The driver bench + all MFU work are DQN-shaped; these legs record
-on-chip tx/s for the other two update programs at config-#3/#4-like
-Atari shapes so regressions there are visible:
+The learner bench is DQN-shaped; these legs record device tx/s for the
+other two update programs at config-#3/#4-like Atari shapes so
+regressions there are visible:
 
   iqn_b256_k4   IQN (64x64 pairwise quantile-Huber, dueling-free
                 head), batch 256 x 4 updates/chunk (1024 tx ratio)
@@ -12,15 +12,18 @@ Atari shapes so regressions there are visible:
                 batch 32 sequences (2560 trained tx per update)
   r2d2_b64_k1   batch 64 sequences
 
-tx/s counts transitions CONSUMED (R2D2: batch x seq_len). Same-process
-A/B per CLAUDE.md. Usage: python tools/bench_algo_legs.py [leg ...]
+tx/s counts transitions CONSUMED (R2D2: batch x seq_len). Compare
+legs only within one process. Usage:
+python tools/bench_algo_legs.py [leg ...]
 """
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 LEGS = {
     "dqn_base": dict(algo="dqn"),
@@ -61,10 +64,10 @@ def run_leg(name, overrides, dispatches=4):
 
 
 def main():
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      0.5)
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
+    from rltime_tpu.utils.device_info import require_gpu
+    enable_compile_cache()
+    print(require_gpu(), flush=True)
     names = sys.argv[1:] or list(LEGS)
     for n in names:
         print(f"--- building {n} ...", flush=True)

@@ -1,4 +1,4 @@
-"""A/B the PER backends (ops/sum_tree vs ops/dense_tree) on-chip.
+"""A/B the PER backends (ops/sum_tree vs ops/dense_tree) on the GPU.
 
 Times the FULL update step (K=4 fused) and the isolated sample +
 priority-update cycle for both ReplayConfig.sampler values, same
@@ -21,8 +21,8 @@ def sync(x):
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from rltime_tpu.history.replay import (
         ReplayConfig, replay_init, replay_insert,
         replay_sample_indices, replay_update_priorities)

@@ -12,22 +12,23 @@ fields differ (actions digest / sampled sum-tree leaves / |TD|
 digest), and — for leaves, which are stored raw — the first mismatch
 positions. Exit code 0 on match, 1 on divergence, 2 on shape mismatch.
 
-Typical drive (CartPole DQN, CPU then TPU; --cache-dir persists the
-TPU compile):
+Typical drive (CartPole DQN, CPU then GPU):
 
     python -m rltime_tpu.train cartpole_dqn --cpu \
         --train.record_transcript=true --train.total_env_steps=20000 \
-        --result-dir /tmp/tx_cpu
+        --result-dir results/tx_cpu
     python -m rltime_tpu.train cartpole_dqn \
         --train.record_transcript=true --train.total_env_steps=20000 \
-        --result-dir /tmp/tx_tpu
-    python tools/compare_transcripts.py /tmp/tx_cpu/transcript.jsonl \
-        /tmp/tx_tpu/transcript.jsonl
+        --result-dir results/tx_gpu
+    python tools/compare_transcripts.py results/tx_cpu/transcript.jsonl \
+        results/tx_gpu/transcript.jsonl
 """
 import argparse
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")  # noqa: E402 (tools/ convention)
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # noqa: E402
 
 from rltime_tpu.utils.transcript import Transcript  # noqa: E402
 

@@ -1,12 +1,15 @@
-"""Dump the optimized HLO of bench.py's fused superstep; grep copies.
+"""Dump the optimized HLO of bench.py's learner superstep; list copies.
 
-Prints every `copy` instruction with its shape+layout so ring-sized
-relayout copies can be attributed (companion to tools/profile_bench.py).
-The program is EXACTLY what the driver measures: it is built by the
-same rltime_tpu/utils/benchprog.py definition bench.py runs (S=16
-lax.scan of {chunk insert + 4 updates}).
+Prints every `copy` instruction that moves a ring-shaped array, with
+its shape and layout, so ring-sized relayout copies can be attributed
+(companion to tools/profile_bench.py). The program is built by the
+same rltime_tpu/utils/benchprog.py definition bench.py runs.
 
-Usage:  timeout 550 python tools/dump_superstep_hlo.py [out.txt]
+    python tools/dump_superstep_hlo.py [out.txt]
+    python tools/dump_superstep_hlo.py --fused
+
+`--fused` compiles the fused superstep on an 8-device CPU mesh and
+prints its collective census.
 """
 import os
 import re
@@ -16,15 +19,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def main():
-    out_path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/superstep_hlo.txt"
-    import jax
+def main(out_path: str):
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
     from rltime_tpu.utils import benchprog
+    from rltime_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     p = benchprog.build()
     beta = jnp.float32(0.4)
     txt = p.superstep.lower(p.tstate, p.rstate, beta,
@@ -33,26 +34,27 @@ def main():
         f.write(txt)
     print(f"wrote {len(txt)} bytes to {out_path}")
 
-    # Big copies: ring-shaped u8/f32 arrays appearing in copy ops
+    # copies whose operand or result is ring-shaped (E, T, ...)
     ring = f"[{benchprog.E},{benchprog.T}"
+    n = 0
     for line in txt.splitlines():
         s = line.strip()
-        if re.match(r"%?copy(\.|\b)", s.split(" = ")[0].lstrip("%")) \
-                or f" = u8{ring}" in s:
-            if f"u8{ring}" in s or f"f32{ring}" in s:
-                print(s[:220])
-    # entry computation layout + aliasing info
+        if (re.search(r"\scopy(-start)?\(", s)
+                and any(f"{dt}{ring}" in s for dt in ("u8", "f32", "pred",
+                                                      "s32"))):
+            n += 1
+            print(s[:220])
+    print(f"ring-sized copies: {n}")
     for line in txt.splitlines():
-        if "entry_computation_layout" in line or "alias" in line.lower():
-            print(line.strip()[:300])
+        if "entry_computation_layout" in line:
+            print(line.strip()[:400])
 
 
 def main_fused():
-    """--fused: compile the FLAGSHIP fused superstep on the 8-device
-    CPU mesh and print the collective census + bytes-over-ICI model
-    (VERDICT r4 Next #3; the structural version is pinned by
+    """--fused: compile the fused superstep on the 8-device CPU mesh
+    and print the collective census + the bytes each device sends per
+    superstep (the structural version is pinned by
     tests/test_collective_census.py)."""
-    import os
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8").strip()
@@ -85,9 +87,9 @@ def main_fused():
     eps = make_global_array(t._eps(t.loop_cfg.chunk_len), t.mesh,
                             P(None, "data"))
     beta = make_global_array(np.float32(0.4), t.mesh, P())
-    txt = t._super.lower(t.train_state, t.actor_state,
-                         t.replay_state, eps, beta).compile().as_text()
-    ents = collective_census(txt)
+    lowered = t._super.lower(t.train_state, t.actor_state,
+                             t.replay_state, eps, beta)
+    ents = collective_census(lowered.compile().as_text())
     print(summarize(ents))
     d = t.num_shards
     K = t.loop_cfg.updates_per_chunk
@@ -95,32 +97,26 @@ def main_fused():
                    for x in jax.tree.leaves(t.train_state.params))
     total_b = sum(e["bytes"] for e in ents)
     # ring-allreduce wire model: each all-reduce moves
-    # 2*(d-1)/d * payload per device over ICI; the combined grad
-    # all-reduce (+ metric pmeans) sits INSIDE the K-update scan body,
-    # so it executes K times per superstep
+    # 2*(d-1)/d * payload per device over the interconnect; the
+    # combined grad all-reduce (+ metric pmeans) sits INSIDE the
+    # K-update scan body, so it executes K times per superstep
     wire = K * sum(e["bytes"] * 2 * (d - 1) / d for e in ents)
-    flops = None
-    try:
-        ca = t._super.lower(
-            t.train_state, t.actor_state, t.replay_state, eps,
-            beta).cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        flops = float(ca.get("flops", 0.0))
-    except Exception:
-        pass
+    ca = lowered.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    flops = float(ca.get("flops", 0.0))
     print(f"\nd={d} K={K} params={params_b:,d} B  "
           f"census_total={total_b:,d} B  "
           f"wire_per_device={wire:,.0f} B/superstep")
     if flops:
         print(f"flops/superstep={flops:,.0f}  "
-              f"arith-intensity vs ICI: {flops / max(wire, 1):,.0f} "
-              "FLOP/wire-byte")
+              f"arith-intensity vs interconnect: "
+              f"{flops / max(wire, 1):,.0f} FLOP/wire-byte")
 
 
 if __name__ == "__main__":
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if "--fused" in sys.argv:
-        sys.argv.remove("--fused")
         main_fused()
     else:
-        main()
+        main(args[0] if args else "superstep_hlo.txt")
